@@ -27,11 +27,6 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if os.environ.get("JAX_PLATFORMS"):
-    import jax
-
-    jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
 from strling_tpu.core.extract import extract_native  # noqa: E402
 from strling_tpu.core.merge import run_merge  # noqa: E402
 from strling_tpu.core.simulate import Allele, normal_hist, simulate_str_bam  # noqa: E402
@@ -44,8 +39,8 @@ WORKER = textwrap.dedent("""
     pid, n, port, out_prefix = sys.argv[1:5]
     bins = sys.argv[5:]
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-    jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(coordinator_address=f"localhost:{port}",
                                num_processes=int(n), process_id=int(pid))
     import resource, time

@@ -56,7 +56,7 @@ BZ2LIB=/lib/x86_64-linux-gnu/libbz2.so.1.0
 [ -e "$BZ2LIB" ] || BZ2LIB=-lbz2
 echo "[sanitize] TSAN build" >&2
 g++ -fsanitize=thread -O1 -g -march=native -std=c++17 -pthread "$TMP/scan.cc" $SRC/*.cc \
-    -o "$TMP/tsan_scan" -ldeflate -lz -llzma $BZ2LIB
+    -o "$TMP/tsan_scan" -lz -llzma $BZ2LIB
 echo "[sanitize] TSAN: BAM scan (BgzfMT)" >&2
 "$TMP/tsan_scan" "$BAM" 2> "$TMP/tsan1.log"
 echo "[sanitize] TSAN: CRAM scan x3 (parallel container decode)" >&2
@@ -69,7 +69,7 @@ fi
 
 echo "[sanitize] ASAN+UBSAN build" >&2
 g++ -fsanitize=address,undefined -O1 -g -march=native -std=c++17 -pthread "$TMP/scan.cc" \
-    $SRC/*.cc -o "$TMP/asan_scan" -ldeflate -lz -llzma $BZ2LIB
+    $SRC/*.cc -o "$TMP/asan_scan" -lz -llzma $BZ2LIB
 echo "[sanitize] fuzz corpus (truncations + bit flips)" >&2
 python - "$CRAM" "$TMP/corpus" <<'PY'
 import random, os, sys
@@ -168,7 +168,7 @@ int main(int argc, char** argv) {
 }
 EOF
 g++ -fsanitize=address,undefined -O1 -g -march=native -std=c++17 -pthread "$TMP/codec.cc" \
-    $SRC/*.cc -o "$TMP/asan_codec" -ldeflate -lz -llzma $BZ2LIB
+    $SRC/*.cc -o "$TMP/asan_codec" -lz -llzma $BZ2LIB
 for mode in arith fqz fqz31 tok3; do
   ASAN_OPTIONS=abort_on_error=1 UBSAN_OPTIONS=halt_on_error=1 \
     timeout 120 "$TMP/asan_codec" "$mode" "$TMP/$mode.blob" \
@@ -248,11 +248,11 @@ int main(int argc, char** argv) {
 }
 CCEOF
 g++ -fsanitize=thread -O1 -g -march=native -std=c++17 -pthread "$TMP/engine.cc" $SRC/*.cc \
-    -o "$TMP/tsan_engine" -ldeflate -lz -llzma $BZ2LIB
+    -o "$TMP/tsan_engine" -lz -llzma $BZ2LIB
 timeout 300 "$TMP/tsan_engine" "$BAM" > "$TMP/engine.out" 2> "$TMP/tsan3.log"
 grep -q "^records=" "$TMP/engine.out"
 g++ -fsanitize=address,undefined -O1 -g -march=native -std=c++17 -pthread "$TMP/engine.cc" \
-    $SRC/*.cc -o "$TMP/asan_engine" -ldeflate -lz -llzma $BZ2LIB
+    $SRC/*.cc -o "$TMP/asan_engine" -lz -llzma $BZ2LIB
 ASAN_OPTIONS=abort_on_error=1 UBSAN_OPTIONS=halt_on_error=1 \
   timeout 300 "$TMP/asan_engine" "$BAM" > /dev/null
 if grep -q "WARNING: ThreadSanitizer" "$TMP/tsan3.log"; then

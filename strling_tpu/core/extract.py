@@ -390,13 +390,13 @@ def extract(bam, fasta: str | None, genome_repeats_path: str | None,
 def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
                    proportion_repeat: float = 0.8, min_mapq: int = 40,
                    verbose: bool = False, genome_index: GenomeIndex | None = None,
-                   backend: str = "auto", devices: str | None = None,
+                   devices: str | None = None,
                    stats: dict | None = None):
     """Native-engine extraction: C++ streams/packs/pairs, device scans.
 
     Same results as `extract` (equivalence-tested); ~2 orders of magnitude
     faster host side. devices="all" round-robins batches over every local
-    chip (byte-identical output — feeds stay FIFO)."""
+    device (byte-identical output — feeds stay FIFO)."""
     from strling_tpu.core.genome_index import genome_repeats as build_gi
     from strling_tpu.io.extract_native import NativeExtractor, peek_max_len
     from strling_tpu.utils import fraglen
@@ -445,7 +445,7 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
                 print(f"Calculated median fragment length:{median}",
                       file=sys.stderr)
 
-        tb = ne.run(backend=backend, devices=devs, pre_feed_hook=set_median,
+        tb = ne.run(devices=devs, pre_feed_hook=set_median,
                     stats=stats, hold_drain=lambda: not ne.hist_ready)
         return ne, tb
 
@@ -465,7 +465,7 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
         Lcap = max(32, ((true_max + 7) // 8) * 8)
         bam2 = Bam(bam.path, Lmax=Lcap, fasta=getattr(bam, "fasta", None))
         ne, tb = run_once_exact(bam2, Lcap, proportion_repeat, min_mapq,
-                                frag_dist, genome_index, backend, devs, opts)
+                                frag_dist, genome_index, devs, opts)
     if verbose:
         dt = max(1e-9, time.time() - t0)
         print(
@@ -476,7 +476,7 @@ def extract_native(bam, fasta: str | None, genome_repeats_path: str | None,
 
 
 def run_once_exact(bam, Lcap, proportion_repeat, min_mapq, frag_dist,
-                   genome_index, backend, devs, opts):
+                   genome_index, devs, opts):
     """Exact-width re-run for the rare mixed-read-length case."""
     from strling_tpu.io.extract_native import NativeExtractor
     from strling_tpu.utils import fraglen
@@ -487,5 +487,5 @@ def run_once_exact(bam, Lcap, proportion_repeat, min_mapq, frag_dist,
         bam, proportion_repeat, min_mapq, median,
         genome_index=genome_index, Lmax=Lcap,
     )
-    tb = ne.run(backend=backend, devices=devs)
+    tb = ne.run(devices=devs)
     return ne, tb

@@ -1,7 +1,7 @@
 """Genome STR index: find repeat regions of the reference FASTA.
 
 Port of src/strpkg/genome_strs.nim. The window scan (100bp windows, step 60,
-genome_strs.nim:122-123) reuses the batched device repeat detector — on TPU a
+genome_strs.nim:122-123) reuses the batched device repeat detector — a
 whole chromosome's windows go through one kernel invocation instead of the
 reference's per-window CPU loop (genome_strs.nim:61-92).
 
@@ -20,8 +20,7 @@ import numpy as np
 
 from strling_tpu.io.fasta import Fasta
 from strling_tpu.ops import oracle
-from strling_tpu.ops.kmer import scan_codes
-from strling_tpu.ops.kmer_pallas import unpack_unit_codes
+from strling_tpu.ops.kmer import scan_codes, unpack_unit_codes
 from strling_tpu.utils.options import Options
 
 WINDOW_SIZE = 100  # genome_strs.nim:122

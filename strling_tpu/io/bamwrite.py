@@ -12,6 +12,10 @@ import zlib
 
 SEQ_NT16 = "=ACMGRSVTWYHKDBN"
 NT16_CODE = {c: i for i, c in enumerate(SEQ_NT16)}
+# byte -> hex digit of its 4-bit code (anything else is N = 15), so that
+# bytes.fromhex packs two bases per byte, first base in the high nibble
+_NT16_HEX = bytes(b"0123456789abcdef"[NT16_CODE.get(chr(i), 15)]
+                  for i in range(256))
 CIGAR_OPS = "MIDNSHP=X"
 
 
@@ -133,11 +137,8 @@ class BamRecord:
         rec += name
         for n, op in self.cigar:
             rec += struct.pack("<I", (n << 4) | op)
-        seq4 = bytearray((l_seq + 1) // 2)
-        for i, c in enumerate(self.seq):
-            code = NT16_CODE.get(c, 15)
-            seq4[i // 2] |= code << (4 if i % 2 == 0 else 0)
-        rec += bytes(seq4)
+        hexs = self.seq.encode("latin-1").translate(_NT16_HEX)
+        rec += bytes.fromhex((hexs + b"0" * (l_seq & 1)).decode())
         rec += b"\xff" * l_seq  # qual 0xff == missing
         return struct.pack("<i", len(rec)) + rec
 

@@ -18,7 +18,6 @@
 
 #include "strling_io.h"
 
-#include <lzma.h>
 
 #include <array>
 #include <climits>
@@ -1257,58 +1256,53 @@ static bool bz2_decode(const uint8_t* in, size_t in_sz, size_t out_sz,
 }
 
 // lzma (CRAM block method 3): htslib writes .xz container streams
-// (lzma_easy_buffer_encode); lzma_stream_buffer_decode reads them.
+// (lzma_easy_buffer_encode); lzma_stream_buffer_decode reads them. Some
+// images ship liblzma.so.5 without its header; this one-shot decoder has a
+// stable ABI (lzma_ret is an int enum, LZMA_OK == 0; the allocator is
+// passed as NULL), declared here.
+extern "C" int lzma_stream_buffer_decode(uint64_t* memlimit, uint32_t flags,
+                                         const void* allocator,
+                                         const uint8_t* in, size_t* in_pos,
+                                         size_t in_size, uint8_t* out,
+                                         size_t* out_pos, size_t out_size);
+
 static bool xz_decode(const uint8_t* in, size_t in_sz, size_t out_sz,
                       std::vector<uint8_t>* out) {
   if (out_sz > (1u << 28)) return false;
   out->resize(out_sz);
   uint64_t memlimit = UINT64_MAX;
   size_t in_pos = 0, out_pos = 0;
-  lzma_ret r = lzma_stream_buffer_decode(&memlimit, 0, nullptr, in, &in_pos,
-                                         in_sz, out->data(), &out_pos,
-                                         out_sz);
-  return r == LZMA_OK && out_pos == out_sz;
+  int r = lzma_stream_buffer_decode(&memlimit, 0, nullptr, in, &in_pos,
+                                    in_sz, out->data(), &out_pos, out_sz);
+  return r == 0 /*LZMA_OK*/ && out_pos == out_sz;
 }
 
 static bool gunzip(const uint8_t* in, size_t in_sz, size_t out_sz,
                    std::vector<uint8_t>* out) {
   out->resize(out_sz);
-  libdeflate_decompressor* d = libdeflate_alloc_decompressor();
-  size_t actual = 0;
-  auto r = libdeflate_gzip_decompress(d, in, in_sz, out->data(), out_sz,
-                                      &actual);
-  libdeflate_free_decompressor(d);
-  return r == LIBDEFLATE_SUCCESS && actual == out_sz;
+  sio::Inflater inf;
+  return inf.run(15 + 16, in, in_sz, out->data(), out_sz) == (long)out_sz;
 }
 
 // gunzip with unknown output size (CRAI files)
 static bool gunzip_all(const uint8_t* in, size_t in_sz,
                        std::vector<uint8_t>* out) {
-  libdeflate_decompressor* d = libdeflate_alloc_decompressor();
+  sio::Inflater inf;
   out->clear();
   size_t off = 0;
   std::vector<uint8_t> tmp(1 << 20);
-  bool ok = true;
   while (off < in_sz) {
-    size_t actual_out = 0, actual_in = 0;
-    for (;;) {
-      auto r = libdeflate_gzip_decompress_ex(d, in + off, in_sz - off,
-                                             tmp.data(), tmp.size(),
-                                             &actual_in, &actual_out);
-      if (r == LIBDEFLATE_SUCCESS) break;
-      if (r == LIBDEFLATE_INSUFFICIENT_SPACE && tmp.size() < (1u << 28)) {
-        tmp.resize(tmp.size() * 2);
-        continue;
-      }
-      ok = false;
-      break;
-    }
-    if (!ok) break;
-    out->insert(out->end(), tmp.begin(), tmp.begin() + actual_out);
-    off += actual_in;
+    size_t used = 0;
+    long n;
+    while ((n = inf.run(15 + 16, in + off, in_sz - off, tmp.data(),
+                        tmp.size(), &used)) == -2 &&
+           tmp.size() < (1u << 28))
+      tmp.resize(tmp.size() * 2);
+    if (n < 0) return false;
+    out->insert(out->end(), tmp.begin(), tmp.begin() + n);
+    off += used;
   }
-  libdeflate_free_decompressor(d);
-  return ok;
+  return true;
 }
 
 // ------------------------------------------------------------------- blocks

@@ -320,8 +320,8 @@ struct Engine {
   // then exact_k <= tp[k] for every k and the kernel result is exactly
   // zero — the row never needs to reach the device. Random (non-STR) reads
   // satisfy this with overwhelming probability (~L/16 expected vs the
-  // ~0.13*L threshold), which removes ~97% of tunnel payload on WGS-like
-  // input. Dimer codes use (c>>1)&3, so N/IUPAC bytes alias real bases and
+  // ~0.13*L threshold), which keeps ~97% of WGS-like input rows off the
+  // device. Dimer codes use (c>>1)&3, so N/IUPAC bytes alias real bases and
   // can only OVERcount — the bound stays sound.
   static int max_dimer_count(const uint8_t* s, int len) {
     int cnt[16] = {0};

@@ -9,7 +9,8 @@
 // jax.device_put.
 //
 // Format references: SAM/BAM spec v1.6 (BGZF §4.1, BAM §4.2, BAI §5.2).
-// Decompression uses libdeflate (raw DEFLATE) with a zlib fallback.
+// Decompression uses zlib (raw DEFLATE for BGZF blocks, gzip for CRAI and
+// CRAM blocks).
 //
 // Thread-safety: one handle per thread; no shared mutable state.
 
@@ -26,9 +27,47 @@
 #include <vector>
 #include <algorithm>
 
-#include <libdeflate.h>
+#include <zlib.h>
 
 namespace sio {
+
+// One reusable zlib inflate state. run() inflates exactly one stream
+// (window_bits -15: raw DEFLATE; 15 + 16: one gzip member) from in[0, in_sz)
+// into out[0, cap) and returns the inflated size, -2 when `cap` is too small,
+// or -1 on corrupt input. *used gets the input bytes the stream took.
+struct Inflater {
+  z_stream zs{};
+  int window_bits = 0;  // what zs was initialised for; 0: not yet
+
+  Inflater() = default;
+  Inflater(const Inflater&) = delete;
+  Inflater& operator=(const Inflater&) = delete;
+  ~Inflater() {
+    if (window_bits) inflateEnd(&zs);
+  }
+
+  long run(int wbits, const uint8_t* in, size_t in_sz, uint8_t* out,
+           size_t cap, size_t* used = nullptr) {
+    if (in_sz > UINT32_MAX || cap > UINT32_MAX) return -1;
+    if (window_bits != wbits) {
+      if (window_bits) inflateEnd(&zs);
+      zs = z_stream{};
+      window_bits = 0;
+      if (inflateInit2(&zs, wbits) != Z_OK) return -1;
+      window_bits = wbits;
+    } else if (inflateReset(&zs) != Z_OK) {
+      return -1;
+    }
+    zs.next_in = const_cast<Bytef*>(in);
+    zs.avail_in = (uInt)in_sz;
+    zs.next_out = out;
+    zs.avail_out = (uInt)cap;
+    int rc = inflate(&zs, Z_FINISH);
+    if (used) *used = in_sz - zs.avail_in;
+    if (rc == Z_STREAM_END) return (long)(cap - zs.avail_out);
+    return (rc == Z_OK || rc == Z_BUF_ERROR) && zs.avail_out == 0 ? -2 : -1;
+  }
+};
 
 // ---------------------------------------------------------------- BGZF reader
 
@@ -130,7 +169,7 @@ struct BgzfMT {
   }
 
   void worker() {
-    libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
+    Inflater inf;
     for (;;) {
       int64_t addr;
       std::vector<uint8_t> cdata;
@@ -166,10 +205,10 @@ struct BgzfMT {
       memcpy(&isize, cdata.data() + cdata.size() - 4, 4);
       size_t actual = 0;
       if (isize > 0) {
-        auto r = libdeflate_deflate_decompress(dec, cdata.data(),
-                                               cdata.size() - 8, b.data.get(),
-                                               BGZF_MAX_BLOCK, &actual);
-        if (r != LIBDEFLATE_SUCCESS) b.err = "inflate failed";
+        long n = inf.run(-15, cdata.data(), cdata.size() - 8, b.data.get(),
+                         BGZF_MAX_BLOCK);
+        if (n < 0) b.err = "inflate failed";
+        else actual = (size_t)n;
       }
       if (b.err.empty() && actual != isize) b.err = "BGZF ISIZE mismatch";
       b.ulen = (int)isize;
@@ -180,7 +219,6 @@ struct BgzfMT {
       }
       cv_done.notify_all();
     }
-    libdeflate_free_decompressor(dec);
   }
 
   // blocking fetch of the block at `addr` (must lie on the sequential chain
@@ -213,7 +251,7 @@ struct BgzfMT {
 
 struct BgzfReader {
   FILE* fp = nullptr;
-  libdeflate_decompressor* dec = nullptr;
+  Inflater inf;
   // current decompressed block
   uint8_t ubuf[BGZF_MAX_BLOCK];
   int ulen = 0;
@@ -229,14 +267,12 @@ struct BgzfReader {
   ~BgzfReader() {
     delete mt;
     if (fp) fclose(fp);
-    if (dec) libdeflate_free_decompressor(dec);
   }
 
   bool open(const char* path) {
     path_ = path;
     fp = fopen(path, "rb");
     if (!fp) { err = "cannot open file"; return false; }
-    dec = libdeflate_alloc_decompressor();
     return load_block(0);
   }
 
@@ -332,9 +368,9 @@ struct BgzfReader {
     memcpy(&isize, cdata.data() + cdata_len + 4, 4);
     size_t actual = 0;
     if (isize > 0) {
-      auto r = libdeflate_deflate_decompress(dec, cdata.data(), cdata_len,
-                                             ubuf, BGZF_MAX_BLOCK, &actual);
-      if (r != LIBDEFLATE_SUCCESS) { err = "inflate failed"; return false; }
+      long n = inf.run(-15, cdata.data(), cdata_len, ubuf, BGZF_MAX_BLOCK);
+      if (n < 0) { err = "inflate failed"; return false; }
+      actual = (size_t)n;
     }
     if (actual != isize) { err = "BGZF ISIZE mismatch"; return false; }
     ulen = (int)isize;

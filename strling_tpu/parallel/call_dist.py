@@ -3,7 +3,7 @@
 The reference `call` is single-threaded with two global barriers that need
 *all* calls before output (SURVEY.md §3.2): the spanning O/E percentile
 ranking (call.nim:29-47,264) and the unique-large-expansion unplaced
-refinement (call.nim:268-277). The TPU-native layout:
+refinement (call.nim:268-277). The sharded layout:
 
 - every process reads the same (bam, bin) pair and replays the cheap,
   order-dependent locus bookkeeping identically — `assign_reads_locus`
@@ -21,7 +21,7 @@ refinement (call.nim:268-277). The TPU-native layout:
   `-unplaced.txt` are byte-identical to `run_call`'s, including line order.
 
 Runs identically with 1 process (the mesh collective spans local devices)
-or N jax.distributed processes (Gloo on CPU test meshes, ICI/DCN on TPU).
+or N jax.distributed processes (Gloo on CPU test meshes, NCCL on GPUs).
 """
 
 from __future__ import annotations

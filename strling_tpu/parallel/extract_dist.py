@@ -158,8 +158,7 @@ def pair_spills(spills: list[tuple[TreadBatch, np.ndarray]],
 def run_extract_dist(bam_path: str, fasta: str | None = None,
                      genome_repeats_path: str | None = None,
                      proportion_repeat: float = 0.8, min_mapq: int = 40,
-                     output_bin: str | None = None, backend: str = "auto",
-                     verbose: bool = False):
+                     output_bin: str | None = None, verbose: bool = False):
     """Distributed extract_main. Every process calls this with the same
     arguments; the read stream is sharded by chromosome internally. Returns
     (TreadBatch, frag_dist, opts) of the COMBINED result on every process;
@@ -192,7 +191,7 @@ def run_extract_dist(bam_path: str, fasta: str | None = None,
     ne.set_shard(my_tids, include_unplaced=(pid == 0))
     if verbose:
         print(f"[strling p{pid}] extracting tids {my_tids}", file=sys.stderr)
-    tb_local = ne.run(backend=backend)
+    tb_local = ne.run()
     keys_local = _keys_struct(ne.emission_keys(0))
     sp_local = ne.spill()
     sp_keys = _keys_struct(ne.emission_keys(1))

@@ -2,7 +2,7 @@
 
 The reference scales merge only by per-chromosome process fan-out over files
 (merge.nim:52,89; pipelines/strling-joint-bychrom.groovy:12-19). The
-TPU-native equivalent (SURVEY.md §2 parallelism table):
+device-mesh equivalent (SURVEY.md §2 parallelism table):
 
 - samples are read in parallel, one subset per process (per-sample data
   parallelism);
@@ -18,7 +18,7 @@ TPU-native equivalent (SURVEY.md §2 parallelism table):
   sorted.
 
 Runs identically single-process over N local devices or multi-process under
-`jax.distributed` (one process per host; collectives ride ICI/DCN there,
+`jax.distributed` (one process per host; collectives ride NCCL on GPUs,
 Gloo on CPU test meshes). Output is byte-identical to single-process
 `run_merge` including line order: both paths write the canonical order
 (bed loci in bed order, then cluster bounds sorted by (tid, left, repeat)).

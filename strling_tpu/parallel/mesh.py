@@ -1,7 +1,7 @@
 """Device-mesh helpers for multi-chip sharding.
 
 The reference has no in-process parallelism at all (SURVEY.md §2: per-sample /
-per-chromosome fan-out via bpipe, files as the only transport). The TPU-native
+per-chromosome fan-out via bpipe, files as the only transport). The device-mesh
 equivalents (SURVEY.md parallelism table):
 
 - read-stream data parallelism ("data" axis): batches of packed reads sharded

@@ -345,3 +345,23 @@ def test_dimer_bound_simd_matches_scalar():
             a = lib.sio_max_dimer_nib(seq4, ln, 0)
             b = lib.sio_max_dimer_nib(seq4, ln, 1)
             assert a == b, (ln, a, b)
+
+
+@pytest.mark.gpu
+def test_gpu_extract_bin_matches_cpu(gpu_device, str_bam, tmp_path):
+    """`extract` with its scans on the card writes the same bin, byte for
+    byte, as the same command in a CPU-only child process."""
+    import os
+    import subprocess
+    import sys
+
+    from strling_tpu.cli import main
+
+    gpu_bin, cpu_bin = tmp_path / "gpu.bin", tmp_path / "cpu.bin"
+    main(["extract", str_bam, str(gpu_bin)])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": repo}
+    subprocess.run([sys.executable, "-m", "strling_tpu.cli", "extract",
+                    str_bam, str(cpu_bin)], env=env, check=True, timeout=600)
+    assert gpu_bin.read_bytes() == cpu_bin.read_bytes()

@@ -182,26 +182,203 @@ def test_fused_n8_layout_equals_w8():
     np.testing.assert_array_equal(r1[1:], r2[1:])  # row 0 differs (the N)
 
 
-def test_pallas_chunked_tiles_matches(monkeypatch):
-    """Batches larger than MAX_TILES*TILE_B run as chained pallas calls in
-    one jit; results must equal the single-call path (exercised with a tiny
-    MAX_TILES so interpret mode stays fast)."""
-    import strling_tpu.ops.kmer_pallas as kp
+# ------------------------------------------- the scan dispatch vs the oracle
+# (fixtures, tie-breaks, IUPAC and wire-layout cases through the production
+# dispatch: scan_codes/scan_payload)
 
-    rng = np.random.default_rng(10)
+
+def _scan_units(reads, props, L=160, bucket=64, pack=True):
+    from strling_tpu.ops.kmer import scan_codes, unpack_unit_codes
+
+    bases, lengths, props = _batch(reads, props, L)
+    code, ulen, cnt = scan_codes(bases, lengths, props, bucket=bucket,
+                                 pack=pack)
+    return unpack_unit_codes(code, ulen), cnt
+
+
+def _assert_oracle(reads, props, units, cnt):
+    for i, (r, p) in enumerate(zip(reads, props)):
+        exp_unit, exp_count = oracle.get_repeat(r, float(p))
+        assert units[i] == exp_unit, (i, r, units[i], exp_unit)
+        assert int(cnt[i]) == exp_count, (i, r, int(cnt[i]), exp_count)
+
+
+def _random_reads(rng, n, max_len, units=("AT", "CAG", "AAGGG", "GGGGCC",
+                                          "A", "ATTCT", "TG"),
+                  min_len=1):
+    alphabet = np.array(list("ACGTN"))
+    reads = []
+    for _ in range(n):
+        mode = rng.integers(0, 4)
+        L = int(rng.integers(min_len, max_len + 1))
+        u = units[rng.integers(0, len(units))]
+        if mode == 0:
+            read = "".join(alphabet[rng.integers(0, 4, L)])
+        elif mode == 1:
+            ph = int(rng.integers(0, len(u)))
+            read = (u * (L // len(u) + 2))[ph : ph + L]
+        elif mode == 2:
+            r = list((u * (L // len(u) + 2))[:L])
+            for _ in range(max(1, L // 12)):
+                r[rng.integers(0, L)] = alphabet[rng.integers(0, 5)]
+            read = "".join(r)
+        else:
+            h = L // 2
+            read = (u * (h // len(u) + 2))[:h] + "".join(
+                alphabet[rng.integers(0, 4, L - h)])
+        reads.append(read)
+    return reads
+
+
+@pytest.mark.parametrize("seed", [1, 4])
+def test_scan_matches_oracle(seed):
+    rng = np.random.default_rng(seed)
+    reads = _random_reads(rng, 48, 152)
+    props = [float(rng.choice([0.8, 0.73, 0.6])) for _ in reads]
+    units, cnt = _scan_units(reads, props)
+    _assert_oracle(reads, props, units, cnt)
+
+
+def test_scan_fixtures():
+    units, cnt = _scan_units(["TGC" * 50 + "T", "A" * 150, "N" * 30 + "AT" * 60],
+                             [0.8, 0.6, 0.8])
+    assert units == ["CTG", "A", ""]
+    assert cnt.tolist() == [49, 150, 0]
+
+
+def test_scan_modal_tiebreak_adversarial():
+    """Reads engineered so two window codes tie on count: the winner must be
+    the code whose LAST occurrence comes earliest (the reference CountTable
+    running-argmax semantics, utils.nim:192-211)."""
+    reads = [
+        # k=3 windows alternate CAG/TTG: equal counts, CAG's last
+        # occurrence earlier in one phase, later in the other
+        "CAGTTG" * 25,
+        "TTGCAG" * 25,
+        # trailing singleton breaks the tie asymmetrically
+        "CAGTTG" * 24 + "CAG",
+        "TTGCAG" * 24 + "TTG",
+        # three-way tie among k=2 and k=4 candidates
+        "ATGC" * 30,
+        "ACGTAACC" * 15,
+        # tie between k=5 codes
+        ("AAGGG" + "CCTTT") * 15,
+        # short reads right at window-count boundaries
+        "CAGCAG",
+        "CAGCAGC",
+        "ATATAT",
+    ]
+    props = [0.3] * len(reads)  # low threshold so ties actually report
+    units, cnt = _scan_units(reads, props)
+    _assert_oracle(reads, props, units, cnt)
+
+
+def test_scan_iupac_bytes_match_oracle():
+    """IUPAC bytes share 2-bit codes with real bases ('R' encodes like 'C')
+    but must never satisfy the exact-recount ASCII compare (utils.nim:254);
+    such batches take the ASCII dispatch."""
+    from strling_tpu.ops.kmer import fuse_payload
+
+    reads = [
+        "CAG" * 20 + "R" + "CAG" * 20,    # R interrupts the run
+        ("CAR" * 30)[:90],                # R inside every unit
+        "AT" * 30 + "RYSWKM" + "AT" * 30,
+        "R" * 60,                          # all-IUPAC read
+    ]
+    props = [0.5] * len(reads)
+    assert fuse_payload(*_batch(reads, props)) is None
+    units, cnt = _scan_units(reads, props)
+    _assert_oracle(reads, props, units, cnt)
+
+
+def test_scan_n8_layout_equals_ascii():
+    """The N-free n8 wire layout must scan identically to the ASCII path,
+    including short lengths and planted repeats."""
+    import strling_tpu.ops.kmer as K
+
+    rng = np.random.default_rng(9)
+    B, L = 64, 104
     alphabet = np.frombuffer(b"ACGT", np.uint8)
-    B, L = 3 * kp.TILE_B, 64
     bases = alphabet[rng.integers(0, 4, (B, L))]
-    for i in range(0, B, 7):
-        bases[i] = np.frombuffer(b"AT" * (L // 2), np.uint8)
-    lengths = np.full(B, L, np.int32)
-    from strling_tpu.ops.kmer import _host_thresholds
+    units = [b"CAG", b"A", b"AT", b"AAGGG", b"ATTCT", b"ACGTCG"]
+    for i in range(0, B, 3):
+        u = units[i % len(units)]
+        bases[i] = np.frombuffer((u * (L // len(u) + 1))[:L], np.uint8)
+    lengths = rng.integers(8, L + 1, B).astype(np.int32)
+    for i, l in enumerate(lengths):
+        bases[i, l:] = 0
+    props = np.full(B, 0.8)
+    payload, layout = K.fuse_payload(bases, lengths, props, return_layout=True)
+    assert layout == "n8"
+    got = K.scan_payload(payload, B, layout, bucket=B)
+    want = K.scan_codes(bases, lengths, props, bucket=B, pack=False)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
-    te, tp = _host_thresholds(lengths, np.full(B, 0.8))
-    whole = kp.get_repeat_device_pallas(bases, lengths, te, tp,
-                                        interpret=True)
-    monkeypatch.setattr(kp, "MAX_TILES", 1)
-    split = kp.get_repeat_device_pallas(bases, lengths, te, tp,
-                                        interpret=True)
-    for a, b in zip(whole, split):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+def test_scan_256bp_matches_oracle():
+    """Reads up to the extractor's 256bp limit (core/extract.py) scan
+    exactly, on the w16 wire layout that L > 248 selects."""
+    from strling_tpu.ops.kmer import fuse_payload
+
+    rng = np.random.default_rng(256)
+    reads = _random_reads(rng, 64, 256, min_len=193)
+    reads[0] = ("CAG" * 90)[:256]
+    reads[1] = ("AAGGG" * 60)[:250]
+    props = [float(rng.choice([0.8, 0.6])) for _ in reads]
+    assert fuse_payload(*_batch(reads, props, 256),
+                        return_layout=True)[1] == "w16"
+    units, cnt = _scan_units(reads, props, L=256)
+    _assert_oracle(reads, props, units, cnt)
+    assert cnt[0] == 85 and units[0] == "AGC"
+
+
+@pytest.mark.parametrize("n_rows", [1, 63, 65, 130])
+def test_scan_payload_bucket_padding(n_rows):
+    """Row counts that are not a multiple of the bucket pad with zero rows
+    (empty reads) and return exactly the first n_rows results."""
+    import strling_tpu.ops.kmer as K
+
+    rng = np.random.default_rng(n_rows)
+    reads = _random_reads(rng, n_rows, 152, min_len=40)
+    props = [0.8] * n_rows
+    bases, lengths, p = _batch(reads, props)
+    payload, layout = K.fuse_payload(bases, lengths, p, return_layout=True)
+    code, ulen, cnt = K.scan_payload(payload, n_rows, layout, bucket=64)
+    assert code.shape == ulen.shape == cnt.shape == (n_rows,)
+    _assert_oracle(reads, props, K.unpack_unit_codes(code, ulen), cnt)
+
+
+# ------------------------------------------------- on the card (marker: gpu)
+
+
+def _kernel_batch(B, L, seed):
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    bases = alphabet[rng.integers(0, 4, (B, L))]
+    units = [b"CAG", b"A", b"AT", b"AAGGG", b"ATTCT", b"CCTGGG"]
+    for i in range(0, B, 7):
+        u = units[i % len(units)]
+        bases[i] = np.frombuffer((u * (L // len(u) + 1))[:L], np.uint8)
+    lengths = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    for i, l in enumerate(lengths):
+        bases[i, l:] = 0
+    return bases, lengths, np.full(B, 0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [152, 256])
+def test_gpu_scan_matches_cpu(gpu_device, L):
+    """The scan compiled for the card equals the CPU backend's byte for byte
+    at the 32768-row bucket (all device arithmetic is int32)."""
+    import jax
+
+    import strling_tpu.ops.kmer as K
+
+    bases, lengths, props = _kernel_batch(32768, L, L)
+    payload, layout = K.fuse_payload(bases, lengths, props, return_layout=True)
+    gpu = np.asarray(K._fused_xla_jit(jax.device_put(payload, gpu_device),
+                                      layout))
+    cpu = np.asarray(K._fused_xla_jit(
+        jax.device_put(payload, jax.devices("cpu")[0]), layout))
+    np.testing.assert_array_equal(gpu, cpu)
